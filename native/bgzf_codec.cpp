@@ -1,6 +1,6 @@
 // Native BGZF block codec with a worker thread pool.
 //
-// The TPU-native runtime's analog of the reference's htslib bgzf layer +
+// The runtime's analog of the reference's htslib bgzf layer +
 // hts_tpool (src/htslib/bgzf.c, thread_pool.c): BAM emission compresses
 // hundreds of MB of BGZF blocks, which is pure-CPU work that Python's
 // zlib serializes on one core. This codec compresses/decompresses many
@@ -120,24 +120,10 @@ int bgzf_compress_blocks(const uint8_t* src, const int64_t* src_offsets,
   return static_cast<int>(total);
 }
 
-// Decompress n_blocks BGZF blocks (given their extents in src) into dst at
-// 65536-strided slots; dst_lens receives per-block uncompressed sizes.
-int bgzf_decompress_blocks(const uint8_t* src, const int64_t* src_offsets,
-                           const int32_t* src_lens, int n_blocks,
-                           int n_threads, uint8_t* dst, int32_t* dst_lens) {
-  parallel_for(n_blocks, n_threads, [&](int i) {
-    dst_lens[i] = decompress_one(src + src_offsets[i], src_lens[i],
-                                 dst + static_cast<int64_t>(i) * 65536, 65536);
-  });
-  for (int i = 0; i < n_blocks; ++i)
-    if (dst_lens[i] < 0) return -1;
-  return 0;
-}
-
-// Decompress directly at caller-computed destination offsets (from the
-// per-block ISIZE trailers), so Python neither over-allocates a
-// 65536-strided scratch nor re-concatenates per-block slices — the
-// 65536-strided variant cost ~0.25 s/4 MB on record-per-block BAMs.
+// Decompress n_blocks BGZF blocks (given their extents in src) directly
+// at caller-computed destination offsets (from the per-block ISIZE
+// trailers), so Python neither over-allocates a 65536-strided scratch nor
+// re-concatenates per-block slices.
 int bgzf_decompress_blocks_at(const uint8_t* src, const int64_t* src_offsets,
                               const int32_t* src_lens, int n_blocks,
                               int n_threads, uint8_t* dst,

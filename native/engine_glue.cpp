@@ -676,13 +676,12 @@ void glue_fill_dp(void* vctx, const int32_t* members, int32_t n_members,
 }
 
 // device results for one chunk. packed rows: score, mqe, max, max_q,
-// max_t, zdropped, i_f, j_f (engine._dp_*_body). ops rows are BACKWARD
-// op codes; skip_mode 1 = Pallas rows (3s interleaved), 0 = scan rows
-// (3 terminates).
+// max_t, zdropped, i_f, j_f (engine._dp_scan_body). ops rows are
+// BACKWARD op codes; 3 terminates a row.
 void glue_set_dp_chunk(void* vctx, const int32_t* members,
                        int32_t n_members, const int8_t* ops,
                        int32_t ops_len, const int32_t* packed,
-                       int32_t chunk_B, int32_t skip_mode) {
+                       int32_t chunk_B) {
   Ctx* ctx = (Ctx*)vctx;
   const int32_t* score = packed;
   const int32_t* mqe = packed + chunk_B;
@@ -696,14 +695,11 @@ void glue_set_dp_chunk(void* vctx, const int32_t* members,
     r.zdropped = (uint8_t)zdr[m];
     r.cigar.clear();
     const int8_t* row = ops + (int64_t)m * ops_len;
-    // backward ops -> forward runs (ops_to_cigar / ops_to_cigar_skip)
+    // backward ops -> forward runs (ops_to_cigar)
     std::vector<Run> back;
     for (int32_t k = 0; k < ops_len; k++) {
       int8_t c = row[k];
-      if (c == 3) {
-        if (skip_mode) continue;
-        break;
-      }
+      if (c == 3) break;
       if (!back.empty() && back.back().op == (uint8_t)c)
         back.back().n++;
       else

@@ -220,13 +220,11 @@ class KswHandler:
         if self._dp_lib:
             from . import native_glue
 
-            ez = native_glue.extd2_native(
+            return native_glue.extd2_native(
                 self._dp_lib, qseq, tseq, match=p.match,
                 mismatch=-p.mismatch, q=p.gap_open, e=p.gap_ex,
                 q2=p.gap_open2, e2=p.gap_ex2, w=p.band, zdrop=p.zdrop,
             )
-            if ez is not None:
-                return ez
         return ksw2_ref.extd2(
             qseq, tseq, match=p.match, mismatch=-p.mismatch,
             q=p.gap_open, e=p.gap_ex, q2=p.gap_open2, e2=p.gap_ex2,

@@ -2,22 +2,17 @@
 (native/engine_glue.cpp): chain-hit extraction + the get_ksw_score
 collect/replay walks + CIGAR merge + result ranking in C++.
 
-The engine uses this when the library is built (tools/build_native.sh);
-align/engine.py falls back to the pure-Python loops otherwise, and
-tests assert both paths produce identical SingleEndState results.
+The library is compiled from native/engine_glue.cpp at first use
+(utils/native_build.py). align/engine.py falls back to the pure-Python
+loops when it cannot be built, and tests assert both paths produce
+identical SingleEndState results.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
-
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native", "build", "libpansvr_glue.so",
-)
 
 _lib = None
 _i8 = ctypes.POINTER(ctypes.c_int8)
@@ -34,12 +29,12 @@ def available() -> bool:
 def get_lib():
     global _lib
     if _lib is None:
-        if not os.path.exists(_LIB_PATH):
+        from ..utils.native_build import ensure_built
+
+        path = ensure_built("libpansvr_glue.so")
+        if path is None:
             return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
+        lib = ctypes.CDLL(path)
         lib.glue_collect.restype = ctypes.c_void_p
         lib.glue_collect.argtypes = [
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -49,30 +44,24 @@ def get_lib():
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int32, ctypes.c_int32, _i32,
         ]
-        try:
-            lib.glue_collect_paths.restype = ctypes.c_void_p
-            lib.glue_collect_paths.argtypes = [
-                ctypes.c_int32, ctypes.c_int32, _i32, ctypes.c_int32,
-                _i32, _i32, _i16,
-                _u8, _u8, _i32, _u8, ctypes.c_int64,
-                _i64, ctypes.c_int32, _i32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _i32,
-            ]
-        except AttributeError:
-            pass  # older built library without the device-collect path
+        lib.glue_collect_paths.restype = ctypes.c_void_p
+        lib.glue_collect_paths.argtypes = [
+            ctypes.c_int32, ctypes.c_int32, _i32, ctypes.c_int32,
+            _i32, _i32, _i16,
+            _u8, _u8, _i32, _u8, ctypes.c_int64,
+            _i64, ctypes.c_int32, _i32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _i32,
+        ]
         lib.glue_req_sizes.argtypes = [ctypes.c_void_p, _i32, _i32]
         lib.glue_fill_dp.argtypes = [
             ctypes.c_void_p, _i32, ctypes.c_int32,
             _i32, _i32, _i32, _i32, ctypes.c_int32, ctypes.c_int32,
         ]
-        try:
-            lib.glue_req_meta.argtypes = [ctypes.c_void_p, _i32]
-        except AttributeError:
-            pass  # older built library without the device-fill meta
+        lib.glue_req_meta.argtypes = [ctypes.c_void_p, _i32]
         lib.glue_set_dp_chunk.argtypes = [
             ctypes.c_void_p, _i32, ctypes.c_int32,
-            _i8, ctypes.c_int32, _i32, ctypes.c_int32, ctypes.c_int32,
+            _i8, ctypes.c_int32, _i32, ctypes.c_int32,
         ]
         lib.glue_set_dp_scalar.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -84,131 +73,91 @@ def get_lib():
             ctypes.c_void_p, _i32, _i32, _u8, _i32, _i32, _i32,
         ]
         lib.glue_free.argtypes = [ctypes.c_void_p]
-        try:
-            lib.glue_str_dup.argtypes = [
-                _u8, _i32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                _i32,
-            ]
-        except AttributeError:
-            pass  # older built library without the STR screen
-        try:
-            lib.glue_signal_scan.argtypes = [
-                _u8, _i64, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                _i32, _i32, _i32, _i32,
-            ]
-        except AttributeError:
-            pass  # older built library without the signal scan
-        try:
-            lib.glue_bam_scan.restype = ctypes.c_int32
-            lib.glue_bam_scan.argtypes = [
-                _u8, ctypes.c_int64, ctypes.c_int32, _i64,
-                _i64, _i32, _i32, _i32, _i32, _i32, _i32,
-            ]
-        except AttributeError:
-            pass  # older built library without the boundary scan
-        try:
-            lib.glue_signal_render.restype = ctypes.c_void_p
-            lib.glue_signal_render.argtypes = [
-                _u8, _i64, _i32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                _i64, _i32, _i32, _i32, _i32, _i32, _i64,
-            ]
-            lib.glue_signal_fq_fetch.argtypes = [ctypes.c_void_p, _u8]
-        except AttributeError:
-            pass  # older built library without the FASTQ renderer
-        try:
-            lib.glue_sv_load.argtypes = [
-                _u8, _i64, ctypes.c_int32, _i32, _u8, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, _i32, _u8, _i32, _i64,
-                _u8, _i64,
-            ]
-        except AttributeError:
-            pass  # older built library without the sv loader
-        try:
-            lib.glue_asm_run.restype = ctypes.c_void_p
-            lib.glue_asm_run.argtypes = [
-                _u8, _i64, ctypes.c_int32, _u8, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32,
-            ]
-            lib.glue_asm_sizes.argtypes = [ctypes.c_void_p, _i64]
-            lib.glue_asm_copy.argtypes = [
-                ctypes.c_void_p, _u8, _i64, _i32, _i64, _i32, _i64,
-                _i32, _i64, _i32,
-            ]
-            lib.glue_asm_free.argtypes = [ctypes.c_void_p]
-        except AttributeError:
-            pass  # older built library without the assembler
-        try:
-            lib.glue_extd2.restype = ctypes.c_int32
-            lib.glue_extd2.argtypes = [
-                _u8, ctypes.c_int32, _u8, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                _i32, _u8, _i32,
-            ]
-        except AttributeError:
-            pass  # older built library without the DP kernel
-        try:
-            lib.glue_parse_comments.argtypes = [
-                _u8, _i64, ctypes.c_int32, _i32,
-            ]
-        except AttributeError:
-            pass  # older built library without the comment parser
-        try:
-            lib.glue_pe_emit.restype = ctypes.c_int64
-            lib.glue_pe_emit.argtypes = [
-                ctypes.c_void_p, ctypes.c_int32, _i32,
-                _u8, _i64, _u8, _i64, _u8, _i64, _u8, _i64,
-                _i32, _i32, _i32, _u8, _i64, _u8, _i64,
-                _i32, _i32, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                _u8, _i64,
-            ]
-            lib.glue_emit_fetch.argtypes = [ctypes.c_void_p, _u8]
-        except AttributeError:
-            pass  # older built library without the PE emitter
-        try:
-            lib.glue_stats_create.restype = ctypes.c_void_p
-            lib.glue_stats_create.argtypes = [_i64, ctypes.c_int32]
-            lib.glue_stats_scan.restype = ctypes.c_int64
-            lib.glue_stats_scan.argtypes = [
-                ctypes.c_void_p, _u8, ctypes.c_int64, _i32,
-            ]
-            lib.glue_stats_sizes.argtypes = [ctypes.c_void_p, _i64]
-            lib.glue_stats_export.argtypes = [
-                ctypes.c_void_p, _i32, _i64, _i32, _i64,
-            ]
-            lib.glue_stats_free.argtypes = [ctypes.c_void_p]
-        except AttributeError:
-            pass  # older built library without the stats scanner
+        lib.glue_str_dup.argtypes = [
+            _u8, _i32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _i32,
+        ]
+        lib.glue_signal_scan.argtypes = [
+            _u8, _i64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _i32, _i32, _i32, _i32,
+        ]
+        lib.glue_bam_scan.restype = ctypes.c_int32
+        lib.glue_bam_scan.argtypes = [
+            _u8, ctypes.c_int64, ctypes.c_int32, _i64,
+            _i64, _i32, _i32, _i32, _i32, _i32, _i32,
+        ]
+        lib.glue_signal_render.restype = ctypes.c_void_p
+        lib.glue_signal_render.argtypes = [
+            _u8, _i64, _i32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _i64, _i32, _i32, _i32, _i32, _i32, _i64,
+        ]
+        lib.glue_signal_fq_fetch.argtypes = [ctypes.c_void_p, _u8]
+        lib.glue_sv_load.argtypes = [
+            _u8, _i64, ctypes.c_int32, _i32, _u8, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, _i32, _u8, _i32, _i64,
+            _u8, _i64,
+        ]
+        lib.glue_asm_run.restype = ctypes.c_void_p
+        lib.glue_asm_run.argtypes = [
+            _u8, _i64, ctypes.c_int32, _u8, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32,
+        ]
+        lib.glue_asm_sizes.argtypes = [ctypes.c_void_p, _i64]
+        lib.glue_asm_copy.argtypes = [
+            ctypes.c_void_p, _u8, _i64, _i32, _i64, _i32, _i64,
+            _i32, _i64, _i32,
+        ]
+        lib.glue_asm_free.argtypes = [ctypes.c_void_p]
+        lib.glue_extd2.restype = ctypes.c_int32
+        lib.glue_extd2.argtypes = [
+            _u8, ctypes.c_int32, _u8, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _i32, _u8, _i32,
+        ]
+        lib.glue_parse_comments.argtypes = [
+            _u8, _i64, ctypes.c_int32, _i32,
+        ]
+        lib.glue_pe_emit.restype = ctypes.c_int64
+        lib.glue_pe_emit.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, _i32,
+            _u8, _i64, _u8, _i64, _u8, _i64, _u8, _i64,
+            _i32, _i32, _i32, _u8, _i64, _u8, _i64,
+            _i32, _i32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _u8, _i64,
+        ]
+        lib.glue_emit_fetch.argtypes = [ctypes.c_void_p, _u8]
+        lib.glue_stats_create.restype = ctypes.c_void_p
+        lib.glue_stats_create.argtypes = [_i64, ctypes.c_int32]
+        lib.glue_stats_scan.restype = ctypes.c_int64
+        lib.glue_stats_scan.argtypes = [
+            ctypes.c_void_p, _u8, ctypes.c_int64, _i32,
+        ]
+        lib.glue_stats_sizes.argtypes = [ctypes.c_void_p, _i64]
+        lib.glue_stats_export.argtypes = [
+            ctypes.c_void_p, _i32, _i64, _i32, _i64,
+        ]
+        lib.glue_stats_free.argtypes = [ctypes.c_void_p]
         _lib = lib
     return _lib
-
-
-def stats_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "glue_stats_create")
-
-
-def emit_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "glue_pe_emit")
 
 
 def parse_comments(comments: list[str]) -> np.ndarray | None:
     """Signal comments -> (n, 8) int32 ori matrix
     [chr_id, ref_bg, read_bg, align_score, mapq, direction, unmapped, 0]
     (the native twin of pipeline.parse_signal_comment's OriResult).
-    None when the built library predates the parser."""
+    None when the library cannot be built."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "glue_parse_comments"):
+    if lib is None:
         return None
     n = len(comments)
     off = np.zeros(n + 1, np.int64)
@@ -229,10 +178,7 @@ def extd2_native(lib, query: np.ndarray, target: np.ndarray, *,
                  match: int, mismatch: int, q: int, e: int, q2: int,
                  e2: int, w: int, zdrop: int, with_cigar: bool = True):
     """C++ extd2 (banded dual-affine DP + CIGAR), bit-identical to
-    ops/ksw2_ref.extd2 (fuzz-tested). Returns an ops/ksw2_ref.Ez, or
-    None when the built library predates glue_extd2."""
-    if not hasattr(lib, "glue_extd2"):
-        return None
+    ops/ksw2_ref.extd2 (fuzz-tested). Returns an ops/ksw2_ref.Ez."""
     from ..ops.ksw2_ref import Ez
 
     qc = np.ascontiguousarray(query, np.uint8)
@@ -260,10 +206,7 @@ def signal_scan(lib, blob: bytes, offs: np.ndarray, *, min_isize: int,
                 not_using_filter: bool, lowq_cutoff: int = 47):
     """One fc_signal block scanned natively: per-record score/clip/NM/XA
     columns, greedy in-block mate pairing, and the 7-rule pair filter.
-    Returns (cols (n,8) int32, mate (n,), verdict (n,), reason (n,)) or
-    None when the built library predates the scan."""
-    if not hasattr(lib, "glue_signal_scan"):
-        return None
+    Returns (cols (n,8) int32, mate (n,), verdict (n,), reason (n,))."""
     n = len(offs) - 1
     blob_a = np.frombuffer(blob, np.uint8)
     offs = np.ascontiguousarray(offs, np.int64)
@@ -284,10 +227,8 @@ def signal_scan(lib, blob: bytes, offs: np.ndarray, *, min_isize: int,
 def bam_scan(lib, data):
     """Record boundaries + fixed-header columns of a decompressed BAM
     byte stream (complete records only). Returns (n, consumed, offs,
-    lens, tid, pos, flag, l_seq, tlen) or None when the library predates
-    the scan. `data` may be bytes or a NumPy/bytearray buffer."""
-    if not hasattr(lib, "glue_bam_scan"):
-        return None
+    lens, tid, pos, flag, l_seq, tlen). `data` may be bytes or a
+    NumPy/bytearray buffer."""
     buf = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) \
         else data
     cap = len(buf) // 36 + 2
@@ -318,11 +259,8 @@ def signal_render(lib, blob, offs: np.ndarray, lens: np.ndarray, *,
     """One fc_signal block parsed, paired, classified AND rendered to
     FASTQ bytes natively (mode 0 = positional in-block pairing, mode 1 =
     adjacent-name pairing of name-sorted phase-2 leftovers).
-    Returns (fq_bytes, n_pairs, n_signal, stat_emitted, leftover_idx) or
-    None when the built library predates the renderer. reason_counts
-    (int64[1024]) is accumulated in place when given."""
-    if not hasattr(lib, "glue_signal_render"):
-        return None
+    Returns (fq_bytes, n_pairs, n_signal, stat_emitted, leftover_idx).
+    reason_counts (int64[1024]) is accumulated in place when given."""
     n = len(lens)
     blob_a = np.frombuffer(blob, np.uint8)
     offs = np.ascontiguousarray(offs, np.int64)
@@ -357,9 +295,7 @@ def sv_load(lib, blob: bytes, offs: np.ndarray, sv_meta: np.ndarray,
     """Native fc_sv record conversion (tags + cigar_adjust + seq decode)
     over raw record bodies. Returns (nums (n,12) int32, cig_ops,
     cig_lens, cig_off, seq_bytes, seq_off) — the cigar/seq outputs are
-    None when full=False. None when the library predates it."""
-    if not hasattr(lib, "glue_sv_load"):
-        return None
+    None when full=False."""
     n = len(offs) - 1
     blob_a = np.frombuffer(blob, np.uint8)
     offs = np.ascontiguousarray(offs, np.int64)
@@ -397,10 +333,7 @@ def asm_build_contigs(lib, reads: list, is_pseudo: list, wl: int,
                       max_assembly_count: int, reject_read_reused: bool):
     """One word-length pass of the Manta-style assembler in C++
     (kmer maps + Tarjan repeats + greedy walks). Returns
-    (success, global_max_count, contig dicts) or None when the built
-    library predates it."""
-    if not hasattr(lib, "glue_asm_run"):
-        return None
+    (success, global_max_count, contig dicts)."""
     blob = "".join(reads).encode()
     offs = np.zeros(len(reads) + 1, np.int64)
     np.cumsum([len(r) for r in reads], out=offs[1:])
@@ -446,10 +379,7 @@ def asm_build_contigs(lib, reads: list, is_pseudo: list, wl: int,
 
 def str_dup_counts(lib, codes: np.ndarray, lens: np.ndarray,
                    kmer_len: int) -> np.ndarray | None:
-    """Per-row duplicate-k-mer counts (the STR pre-screen quantity), or
-    None when the built library predates glue_str_dup."""
-    if not hasattr(lib, "glue_str_dup"):
-        return None
+    """Per-row duplicate-k-mer counts (the STR pre-screen quantity)."""
     codes = np.ascontiguousarray(codes, np.uint8)
     lens = np.ascontiguousarray(lens, np.int32)
     n, L = codes.shape
@@ -539,12 +469,11 @@ class GlueBatch:
         """(5, n_req) int32: flat query base, qlen_act, ref_st (clamped),
         tlen, reversed — enough for the DEVICE to build the DP code
         matrices from its resident read words + reference (saves the
-        per-chunk qc/tc transfer over the link)."""
+        per-chunk qc/tc host-to-device copy)."""
         out = np.zeros((5, max(self.n_req, 1)), np.int32)
-        if self.n_req and hasattr(self.lib, "glue_req_meta"):
+        if self.n_req:
             self.lib.glue_req_meta(self.ctx, _p(out, _i32))
-            return out
-        return None if self.n_req else out
+        return out
 
     def fill_dp(self, members: np.ndarray, cq: int, ct: int, B: int):
         """Padded (B, cq)/(B, ct) int32 code matrices for one chunk."""
@@ -559,14 +488,13 @@ class GlueBatch:
         return qc, ql, tc, tl
 
     def set_dp_chunk(self, members: np.ndarray, ops: np.ndarray,
-                     packed: np.ndarray, skip_mode: bool):
+                     packed: np.ndarray):
         members = np.ascontiguousarray(members, np.int32)
         ops = np.ascontiguousarray(ops, np.int8)
         packed = np.ascontiguousarray(packed, np.int32)
         self.lib.glue_set_dp_chunk(
             self.ctx, _p(members, _i32), len(members),
             _p(ops, _i8), ops.shape[1], _p(packed, _i32), packed.shape[1],
-            1 if skip_mode else 0,
         )
 
     def set_dp_scalar(self, req: int, ez):

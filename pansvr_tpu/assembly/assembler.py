@@ -308,8 +308,6 @@ class AssemblyManager:
             self.o.min_coverage, self.o.min_conservative_coverage,
             self.o.max_assembly_count, self.o.reject_read_reused,
         )
-        if res is None:
-            return None
         success, gmax, raw = res
         self._tmp_contigs = []
         for r in raw:

@@ -49,9 +49,7 @@ def _dp(qseq, tseq, **params):
 
     lib = native_glue.get_lib()
     if lib is not None:
-        ez = native_glue.extd2_native(lib, qseq, tseq, **params)
-        if ez is not None:
-            return ez
+        return native_glue.extd2_native(lib, qseq, tseq, **params)
     return ksw2_ref.extd2(qseq, tseq, **params)
 
 # RST states (sve.hpp:27-30)

@@ -220,8 +220,6 @@ class SvReadIndex:
         self.min_score = min_score
         self.spans: dict[int, list[tuple[int, int]]] = {}
         self._lib = native_glue.get_lib()
-        if self._lib is not None and not hasattr(self._lib, "glue_sv_load"):
-            self._lib = None
         self._meta, self._types = _sv_meta_arrays(sv_infos)
         rd = BamReaderOffsets(bam_path)
         try:
@@ -371,9 +369,7 @@ def _scalar_contig_dp(qseq, tseq):
 
     lib = native_glue.get_lib()
     if lib is not None:
-        ez = native_glue.extd2_native(lib, qseq, tseq, **CONTIG_DP)
-        if ez is not None:
-            return ez
+        return native_glue.extd2_native(lib, qseq, tseq, **CONTIG_DP)
     return ksw2_ref.extd2(qseq, tseq, **CONTIG_DP)
 
 
@@ -382,16 +378,18 @@ class ContigDpBatcher:
 
     fc_sv's DP calls are independent across SVs, so SvCaller first PLANS
     every SV (assembly + voting + DP request collection), then all
-    requests run as one batched device program (ops/extd2_pallas with
+    requests run as batched device programs (ops/extd2_jax scan DP with
     the contig scoring profile), then verdicts are finished. The inline
     mode (device=False) resolves each request immediately with the
-    scalar oracle — same results, used on CPU-only deployments."""
+    scalar kernel — same results."""
 
-    def __init__(self, device: bool = False, Q: int = 576, T: int = 704,
-                 W: int = 192, interpret: bool = False):
+    # largest device chunk: the (576, 704) class keeps a
+    # (chunk, 1279, 704) uint8 direction matrix on the device
+    MAX_CHUNK = 256
+
+    def __init__(self, device: bool = False, Q: int = 576, T: int = 704):
         self.device = device
-        self.Q, self.T, self.W = Q, T, W
-        self.interpret = interpret
+        self.Q, self.T = Q, T
         self.requests: list = []
         self.results: list = []
 
@@ -409,9 +407,9 @@ class ContigDpBatcher:
         """Resolve all pending requests (device path)."""
         if not self.device or not self.requests:
             return
-        from ..ops.extd2_jax import Extd2Params
-        from ..ops import extd2_pallas as epl
-        from ..ops.ksw2_ref import Ez, NEG_INF
+        from ..ops.extd2_jax import (
+            Extd2Params, extd2_batch, ops_to_cigar, traceback_batch)
+        from ..ops.ksw2_ref import Ez
 
         params = Extd2Params(
             match=CONTIG_DP["match"], mismatch=CONTIG_DP["mismatch"],
@@ -419,17 +417,16 @@ class ContigDpBatcher:
             e2=CONTIG_DP["e2"], w=CONTIG_DP["w"], zdrop=CONTIG_DP["zdrop"],
         )
         self.results = [None] * len(self.requests)
-        small = [k for k, (q, t) in enumerate(self.requests)
-                 if len(q) <= self.Q and len(t) <= self.T]
-        for k in range(len(self.requests)):
-            if k not in set(small):
-                q, t = self.requests[k]
+        small = []
+        for k, (q, t) in enumerate(self.requests):
+            if len(q) <= self.Q and len(t) <= self.T:
+                small.append(k)
+            else:
                 self.results[k] = _scalar_contig_dp(q, t)
-        BLK = epl.BLK
-        _, n_diag_pad, _, _ = epl._plan(self.Q, self.T, self.W)
-        for c0 in range(0, len(small), 4 * BLK):
-            chunk = small[c0 : c0 + 4 * BLK]
-            B = ((len(chunk) + BLK - 1) // BLK) * BLK
+        for c0 in range(0, len(small), self.MAX_CHUNK):
+            chunk = small[c0 : c0 + self.MAX_CHUNK]
+            # power-of-two chunk rows bound the compiled shapes
+            B = max(8, 1 << (len(chunk) - 1).bit_length())
             qc = np.zeros((B, self.Q), np.int32)
             tc = np.zeros((B, self.T), np.int32)
             ql = np.ones(B, np.int32)
@@ -440,20 +437,14 @@ class ContigDpBatcher:
                 tc[bi, : len(t)] = t
                 ql[bi] = len(q)
                 tl[bi] = len(t)
-            res = epl.extd2_batch_pallas(
-                qc, ql, tc, tl, params=params, W=self.W,
-                interpret=self.interpret,
-            )
+            res = extd2_batch(qc, ql, tc, tl, params=params)
             zdr = np.asarray(res.zdropped)
             mxt = np.asarray(res.max_t)
             mxq = np.asarray(res.max_q)
             i0 = np.where(~zdr, tl - 1, np.where(mxt >= 0, mxt, -1)).astype(np.int32)
             j0 = np.where(~zdr, ql - 1, np.where(mxq >= 0, mxq, -1)).astype(np.int32)
-            ops, i_f, j_f = epl.traceback_batch_pallas(
-                res.dmat, ql, tl, i0, j0, params=params, W=self.W,
-                n_diag_pad=n_diag_pad, Tmax=self.T,
-                interpret=self.interpret,
-            )
+            ops, i_f, j_f = traceback_batch(res.dmat, res.st_arr, res.en_arr,
+                                            i0, j0, K=self.Q + self.T)
             ops = np.asarray(ops)
             i_f = np.asarray(i_f)
             j_f = np.asarray(j_f)
@@ -461,7 +452,7 @@ class ContigDpBatcher:
             mqe = np.asarray(res.mqe)
             mx = np.asarray(res.max)
             for bi, k in enumerate(chunk):
-                cig = epl.ops_to_cigar_skip(ops[bi], int(i_f[bi]), int(j_f[bi])) \
+                cig = ops_to_cigar(ops[bi], int(i_f[bi]), int(j_f[bi])) \
                     if i0[bi] >= 0 else []
                 self.results[k] = Ez(
                     score=int(score[bi]), mqe=int(mqe[bi]), max=int(mx[bi]),
@@ -1127,9 +1118,8 @@ def run_sv_calling(bam_path: str, sf: SVRefSequence,
     of the realigner's collect/replay."""
     o = opts or SvCallOptions()
     # default DP = inline native C++ kernel (ContigDpBatcher device=False
-    # -> _scalar_contig_dp): measured FASTER than the batched device path
-    # at fc_sv scale (dispatch round trips dominate ~2k small problems);
-    # callers can still pass ContigDpBatcher(device=True) explicitly
+    # -> _scalar_contig_dp); callers can pass ContigDpBatcher(device=True)
+    # to batch the contig DP on the device instead
     caller = SvCaller(sf, o, dp=dp, detail_out=detail_out)
     index = SvReadIndex(bam_path, sf.sv_info, min_score=o.min_score)
     # chromosome-range sharding (the reference's -S/-E resumability

@@ -121,7 +121,7 @@ def _cmd_fc_aln(args):
         "PANSVR_NO_NATIVE_EMIT")
     if use_native_emit:
         from ..align import native_glue
-        use_native_emit = native_glue.emit_available()
+        use_native_emit = native_glue.available()
     if use_native_emit:
         from ..align.bam_out import EmitContext
 
@@ -148,7 +148,7 @@ def _cmd_fc_aln(args):
                        [parse_signal_comment(p[3])[0] for p in chunk])
 
     # --trace DIR: structured device profiling (xplane/perfetto) around
-    # the whole realignment stream — the TPU analog of the reference's
+    # the whole realignment stream — the device analog of the reference's
     # cputime() stage timers (read_realignment.cpp:71-73,105)
     tracer = contextlib.nullcontext()
     if getattr(args, "trace", None):
@@ -266,6 +266,7 @@ def _cmd_run(args):
 
     out = run_pipeline(args.vcf, args.ref, args.bam, args.workdir,
                        PipelineConfig(first_level_bases=args.first_level,
+                                      batch_size=args.batch,
                                       sv_shards=args.sv_shards))
     print(out)
 
@@ -311,12 +312,6 @@ def _cmd_tools(args):
 
 
 def main(argv=None):
-    # persistent jit cache: repeated runs skip recompilation (set before
-    # any jax import; harmless on CPU-only commands)
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          "/tmp/pansvr_jax_cache")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-    os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
     p = argparse.ArgumentParser(prog="pansvr_tpu", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -382,6 +377,8 @@ def main(argv=None):
     s.add_argument("bam")
     s.add_argument("workdir")
     s.add_argument("--first-level", type=_fl_arg, default="auto")
+    s.add_argument("-b", "--batch", type=int, default=2048,
+                   help="realignment engine batch (reads)")
     s.add_argument("--sv-shards", type=int, default=1,
                    help="fan fc_sv out over N worker processes "
                         "(panSVR_run.sh per-chromosome fan-out analog)")

@@ -1,18 +1,13 @@
 """ctypes binding for the native multithreaded BGZF codec
-(native/bgzf_codec.cpp). Falls back silently when the library is not
-built; io.bgzf uses it for whole-buffer compression when available."""
+(native/bgzf_codec.cpp), compiled at first use (utils/native_build.py).
+io.bgzf uses it for whole-buffer compression and falls back to zlib in
+Python when it cannot be built."""
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
-
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native", "build", "libpansvr_bgzf.so",
-)
 
 _lib = None
 
@@ -24,16 +19,14 @@ def available() -> bool:
 def get_lib():
     global _lib
     if _lib is None:
-        if not os.path.exists(_LIB_PATH):
+        from ..utils.native_build import ensure_built
+
+        path = ensure_built("libpansvr_bgzf.so")
+        if path is None:
             return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
-            return None
+        lib = ctypes.CDLL(path)
         lib.bgzf_compress_blocks.restype = ctypes.c_int
-        lib.bgzf_decompress_blocks.restype = ctypes.c_int
-        if hasattr(lib, "bgzf_decompress_blocks_at"):
-            lib.bgzf_decompress_blocks_at.restype = ctypes.c_int
+        lib.bgzf_decompress_blocks_at.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -50,47 +43,29 @@ def decompress_blocks(data, offs, lens, n_threads: int = 8) -> bytes | None:
     src = np.frombuffer(data, dtype=np.uint8)
     offsets = np.ascontiguousarray(offs, np.int64)
     lens_a = np.ascontiguousarray(lens, np.int32)
-    if hasattr(lib, "bgzf_decompress_blocks_at"):
-        # destination offsets from the ISIZE trailers (last 4 bytes of
-        # each block): exact-size output, zero re-concatenation — the
-        # strided variant below over-allocates 64 KiB per block, which
-        # is pathological on record-per-block writers
-        tail = (offsets + lens_a - 4).astype(np.int64)
-        isz = (
-            src[tail].astype(np.int64)
-            | (src[tail + 1].astype(np.int64) << 8)
-            | (src[tail + 2].astype(np.int64) << 16)
-            | (src[tail + 3].astype(np.int64) << 24)
-        )
-        dst_offs = np.zeros(n + 1, np.int64)
-        np.cumsum(isz, out=dst_offs[1:])
-        dst = np.empty(int(dst_offs[-1]), dtype=np.uint8)
-        rc = lib.bgzf_decompress_blocks_at(
-            src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            lens_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.c_int(n), ctypes.c_int(n_threads),
-            dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            dst_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        )
-        if rc < 0:
-            return None
-        return dst.tobytes()
-    dst = np.empty(n * 65536, dtype=np.uint8)
-    dst_lens = np.empty(n, dtype=np.int32)
-    rc = lib.bgzf_decompress_blocks(
+    # destination offsets from the ISIZE trailers (last 4 bytes of each
+    # block): exact-size output, zero re-concatenation
+    tail = (offsets + lens_a - 4).astype(np.int64)
+    isz = (
+        src[tail].astype(np.int64)
+        | (src[tail + 1].astype(np.int64) << 8)
+        | (src[tail + 2].astype(np.int64) << 16)
+        | (src[tail + 3].astype(np.int64) << 24)
+    )
+    dst_offs = np.zeros(n + 1, np.int64)
+    np.cumsum(isz, out=dst_offs[1:])
+    dst = np.empty(int(dst_offs[-1]), dtype=np.uint8)
+    rc = lib.bgzf_decompress_blocks_at(
         src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         lens_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         ctypes.c_int(n), ctypes.c_int(n_threads),
         dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        dst_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        dst_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     if rc < 0:
         return None
-    out = np.concatenate(
-        [dst[i * 65536 : i * 65536 + dst_lens[i]] for i in range(n)])
-    return out.tobytes()
+    return dst.tobytes()
 
 
 def compress(data: bytes, level: int = 6, n_threads: int = 8,

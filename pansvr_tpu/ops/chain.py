@@ -144,8 +144,7 @@ def chain_batch(read_begin, read_end, ref_begin, ref_end, cov, seed_id,
 
     # sequential relaxation in sorted order, statically unrolled with a
     # rolling (B, Weff) window of recent dist columns: win[:, o-1] holds
-    # dist[j-o] (S is bucketed small by callers; dynamic-slice scans and
-    # per-step column stacking both lower poorly on TPU)
+    # dist[j-o] (S is bucketed small by callers)
     tie = (WINDOW - offs[0])                                  # (Weff,)
     win = jnp.zeros((B, Weff), jnp.int32)
     dist_cols: list = []

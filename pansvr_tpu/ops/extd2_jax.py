@@ -4,9 +4,9 @@ Device wavefront implementation of the kernel specified by
 ops/ksw2_ref.py (itself fuzz-verified bit-exact against the reference
 SSE kernel). One `lax.scan` step = one anti-diagonal; problems are
 vmapped across the batch, so each scan step is an elementwise pass over a
-(B, T_max) tile — VPU-friendly. Direction bits are emitted per diagonal
-for host-side traceback (traceback is O(q+t) per problem and sequential;
-the DP sweep is the hot part).
+(B, T_max) tile. Direction bits are emitted per diagonal; the traceback
+(traceback_batch) is a second scan, one step per CIGAR op, over all
+problems at once.
 
 Semantics notes (kept identical to the oracle / reference):
   - per-problem moving band with the reference's 16-aligned padded update
@@ -30,6 +30,10 @@ import jax.numpy as jnp
 import numpy as np
 
 NEG_INF = -0x40000000
+
+# lax.scan unroll factors of the forward sweep and of the traceback walk
+FWD_UNROLL = 1
+TB_UNROLL = 1
 
 
 class Extd2Params(NamedTuple):
@@ -279,7 +283,8 @@ def _extd2_single(q_codes, qlen, t_codes, tlen, p: Extd2Params, n_diag: int,
             ys = (jnp.where(active, st, -1), jnp.where(active, en, -1))
         return nc, ys
 
-    carry, ys = jax.lax.scan(step, init, jnp.arange(n_diag, dtype=jnp.int32))
+    carry, ys = jax.lax.scan(step, init, jnp.arange(n_diag, dtype=jnp.int32),
+                             unroll=FWD_UNROLL)
     if with_dmat:
         dmat, st_arr, en_arr = ys
     else:
@@ -354,7 +359,8 @@ def traceback_batch(dmat, st_arr, en_arr, i0, j0, K: int):
 
     alive0 = (i0 >= 0) & (j0 >= 0)
     (i_f, j_f, _, _), ops = jax.lax.scan(
-        step, (i0, j0, jnp.zeros_like(i0), alive0), None, length=K
+        step, (i0, j0, jnp.zeros_like(i0), alive0), None, length=K,
+        unroll=TB_UNROLL,
     )
     return jnp.transpose(ops), i_f, j_f
 

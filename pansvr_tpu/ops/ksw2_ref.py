@@ -1,11 +1,11 @@
 """Scalar/NumPy reference implementation of the banded dual-affine-gap DP
 ("extd2" semantics, after src/kswlib/ksw2_extd2_sse.c).
 
-This is the behavioral oracle for the Pallas TPU kernel in ksw2_pallas.py:
+This is the behavioral oracle for the device DP in extd2_jax.py:
 readable, bit-compatible with the reference SSE kernel (fuzz-verified
 against a .so compiled from the reference source in
 tests/golden/test_ksw2_golden.py), and deliberately structured like the
-anti-diagonal wavefront the TPU kernel uses.
+anti-diagonal wavefront the device DP uses.
 
 Mechanics mirrored exactly (they are observable in scores/CIGARs):
   - anti-diagonal iteration r = i+j with moving band

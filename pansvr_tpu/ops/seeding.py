@@ -339,8 +339,7 @@ def seed_reads(
     # most seeds have 1-2 table entries; doing the gather-heavy extension
     # on (B, S0, H) wastes ~10-30x lanes. Valid hits per seed are the
     # FIRST count[s] slots, so per-read packing is pure offset arithmetic
-    # (a prefix sum + searchsorted — no (B, S0*H) argsort, which costs
-    # ~1 s/batch on TPU bitonic sorts).
+    # (a prefix sum + searchsorted — no (B, S0*H) argsort).
     eff = jnp.where(found, count, 0)                         # (B, S0)
     cum = jnp.cumsum(eff, axis=1)                            # inclusive
     start = cum - eff                                        # per-seed offset
@@ -454,10 +453,9 @@ def seed_reads_flat(
                                # rotate; "steps" = ~2*NE word gathers
     wb: str = "gather",        # (B, M) writeback: "gather" = 6 full-size
                                # lane gathers; "slice" = one (M, 6)
-                               # contiguous slice per row (measured
-                               # SLOWER on-chip 2026-08-19: the stack
-                               # breaks XLA's fusion of the where-masks
-                               # into the gathers; 137 vs 106 ms/front)
+                               # contiguous slice per row (the stack
+                               # can break XLA's fusion of the
+                               # where-masks into the gathers)
     stop_after: str = "",      # profiling: "probe" / "lanes" returns the
                                # partial result early (tools/profile_front2)
     compact_rows: int = 0,     # R > 0: after the probe, compact the rows
@@ -514,10 +512,8 @@ def seed_reads_flat(
     if probe == "sortjoin":
         # sort-merge join of the batch's query keys against the WHOLE
         # entry table: one 3-key lax.sort + cummax scans + one unsort
-        # replaces the per-lane dependent-gather bisect (measured
-        # 2026-08-20 on v5e: a 3-operand 606k sort is ~1 ms while ONE
-        # dependent gather step at 475k lanes is ~3.4 ms and the bisect
-        # needs mbb+2 of them). Identical (found, count, left) to the
+        # replaces the per-lane dependent-gather bisect, which needs
+        # mbb+2 dependent gather steps. Identical (found, count, left) to the
         # bisect path. Viable when n_kmer is sort-sized (the engine
         # gates on SORTJOIN_MAX_KMER); the index side contributes its
         # (bucket, residue) keys via didx.ent_bucket/ent_res.
@@ -639,9 +635,9 @@ def seed_reads_flat(
         # <= f, a step function of the SORTED query axis (f_idx is an
         # iota): one B-element scatter-add at the row boundaries + one
         # cumsum over NF replaces the 14-iteration bisect (14 x NF
-        # dependent HBM gathers, ~24 ms/batch on-chip; the scatter is
-        # only B elements — the earlier scatter-max + cummax failure
-        # was an NF-element scatter)
+        # dependent gathers; the scatter is only B elements — the
+        # earlier scatter-max + cummax failure was an NF-element
+        # scatter)
         bump = (
             jnp.zeros((NF + 1,), jnp.int32)
             .at[jnp.minimum(cum_take, NF)]
@@ -738,8 +734,8 @@ def seed_reads_flat(
     if use_slab:
         # read-side windows from ONE (NF, Wr) row-slab gather + per-step
         # select trees over the Wr in-register words: replaces the 2*NE
-        # per-lane random rtab gathers (~2.9M HBM gathers/batch, ~29 ms
-        # on-chip) with one slice-contiguous gather plus VPU selects.
+        # per-lane random rtab gathers (~2.9M gathers/batch) with one
+        # slice-contiguous gather plus elementwise selects.
         # Same word-index clipping and shift arithmetic as
         # _read_win_table, so the windows are bit-identical.
         rw_lane = jnp.take(rw_u, row_c, axis=0)         # (NF, Wr)
@@ -887,8 +883,7 @@ def seed_reads_flat(
     if wb == "rowgather":
         # ONE row gather of a stacked (NF, 6) table instead of 6 lane
         # gathers: same descriptor count as one gather, 6x fewer total
-        # (each (B, M) gather measured ~4 ms on-chip; rows are 24
-        # contiguous bytes)
+        # (rows are 24 contiguous bytes)
         flat6 = jnp.stack(
             [uid, read_pos, uni_pos_off, length, pos_n,
              valid_f.astype(jnp.int32)], axis=1)             # (NF, 6)
@@ -1095,9 +1090,9 @@ def merge_expand_device(sb: SeedBatch, didx: DeviceIndex, S: int,
     B, M = uid.shape
 
     # ---- sort MEMs by (uid, read_pos), invalid last ---------------------
-    # ONE stable two-key sort carrying packed payloads: each extra
-    # (B, M) in-row gather costs ~5 ms on TPU (XLA lowers take_along_axis
-    # to a general HBM gather), so fields ride the sort network instead.
+    # ONE stable two-key sort carrying packed payloads: XLA lowers each
+    # extra (B, M) in-row take_along_axis to a general gather, so fields
+    # ride the sort network instead.
     # read_pos/length fit 12 bits (read classes <= 512); pos_n is
     # clamped to 14 bits, lossless for every downstream use (the >500
     # sampling and >8000 abort thresholds, and the sampled modulo which
@@ -1188,9 +1183,9 @@ def merge_expand_device(sb: SeedBatch, didx: DeviceIndex, S: int,
     total = cum[:, -1]
 
     slot = jnp.arange(S, dtype=jnp.int32)[None, :]
-    # upper_bound(cum, slot) as a compare-reduce: a (B, S, M) compare
-    # costs a few ms on the VPU where the vmapped searchsorted lowers to
-    # a ~26 ms while loop (measured in the front trace)
+    # upper_bound(cum, slot) as a compare-reduce: one elementwise
+    # (B, S, M) compare where the vmapped searchsorted lowers to a while
+    # loop
     src_run = jnp.sum(
         (cum[:, None, :] <= slot[:, :, None]).astype(jnp.int32), axis=2
     )
@@ -1264,8 +1259,8 @@ def merge_expand_device3(sb: SeedBatch, didx: DeviceIndex, S: int,
     """Device merge/expand with the expand-side run-attribute gathers
     replaced by one-hot masked sums over the tiny M axis: src_run is
     non-decreasing per row, so its one-hot factors out of the (B, S, M)
-    compare the v2 variant already pays, and each attribute select is a
-    VPU reduce instead of a ~5 ms (B, M) take_along_axis HBM gather.
+    compare the v2 variant already pays, and each attribute select is an
+    elementwise reduce instead of a (B, M) take_along_axis gather.
     Bit-identical outputs (tested)."""
     uid, rp, uo, ln, pn, valid = (
         sb.uid, sb.read_pos, sb.uni_pos_off, sb.length, sb.pos_n, sb.valid

@@ -1,9 +1,8 @@
-"""Multiprocess fc_aln fan-out: one worker process per chip.
+"""Multiprocess fc_aln fan-out: one worker process per card.
 
-The measured serial host fraction of the realignment stage (~0.3 on the
-real chip) is the Amdahl ceiling of any multi-chip deployment — the
-device programs shard over a mesh (parallel.mesh), but one Python host
-fed them all. This module is the kt_pipeline/kt_for process analog
+The serial host fraction of the realignment stage is the Amdahl ceiling
+of any multi-card deployment — the device programs shard over a mesh
+(parallel.mesh), but one Python host feeds them all. This module is the kt_pipeline/kt_for process analog
 (read_realignment.cpp:98-176) at deployment granularity: the signal
 FASTQ splits into contiguous pair-aligned shards, one `pansvr_tpu
 fc_aln` subprocess per shard owns its own device plus ALL of its host
@@ -11,9 +10,10 @@ glue (prep, collect, replay, PE-emit, BGZF write), and the shard BAMs
 merge in input order — byte-identical record streams to the unsharded
 run (tested), mirroring the reference's stage file contracts.
 
-On a real multi-chip host, pass per-worker env pinning one chip each
-(e.g. TPU_VISIBLE_DEVICES); the virtual test runs workers on the CPU
-backend.
+On a multi-GPU host, pass per-worker env pinning one card each,
+worker_env={"CUDA_VISIBLE_DEVICES": "{shard}"}: each JAX process
+reserves most of a card's memory when it starts, so two workers must
+never share one. The virtual test runs workers on the CPU backend.
 """
 
 from __future__ import annotations
@@ -73,7 +73,6 @@ def run_aln_fanout(index_dir: str, signal_fq: str, header_sam: str,
     Failed/timed-out shards re-dispatch up to `max_retries` times (same
     elasticity contract as run_sv_fanout)."""
     env = dict(os.environ)
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pansvr_jax_cache")
     if worker_env:
         env.update(worker_env)
 

@@ -5,9 +5,10 @@ The reference launches one fc_sv process per chromosome range and
 concatenates the VCF parts; here the anchor-contig id space is split
 into `n_shards` contiguous ranges (parallel.mesh.shard_sv_regions), one
 `pansvr_tpu fc_sv -S lo -E hi` subprocess per range, and the parts are
-merged with parallel.mesh.merge_vcf_parts. Workers run the DP on the
-CPU backend by default so N processes never contend for one TPU; the
-realignment stage is where the chip earns its keep.
+merged with parallel.mesh.merge_vcf_parts. Workers run on the CPU
+backend by default: each JAX process reserves most of a card's memory
+when it starts, so N workers cannot share one card, and the realignment
+stage is where the card earns its keep.
 """
 
 from __future__ import annotations
@@ -48,10 +49,10 @@ def run_sv_fanout(anchors_fa: str, bam: str, ref: str, out_vcf: str,
     n_sv = count_anchor_contigs(anchors_fa)
     n_shards = max(1, min(n_shards, n_sv or 1))
     env = dict(os.environ)
-    # workers on CPU: fc_sv's contig DP is small-shape and N processes
-    # must not contend for the single realignment chip
-    env.setdefault("JAX_PLATFORMS", "cpu")
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pansvr_jax_cache")
+    # workers on the CPU: a JAX process reserves most of a card's memory
+    # at start-up, so N workers cannot share the realignment card
+    # (worker_env may override)
+    env["JAX_PLATFORMS"] = "cpu"
     if worker_env:
         env.update(worker_env)
 

@@ -1,18 +1,18 @@
-"""Multi-chip / multi-host sharding for the realignment pipeline.
+"""Multi-device / multi-host sharding for the realignment pipeline.
 
 The reference's parallelism is single-node (kt_for threads + bash
-fan-out, SURVEY.md §2.2); the TPU-native scale-out replaces it with:
+fan-out, SURVEY.md §2.2); the device scale-out replaces it with:
 
-  - data parallelism over an ICI mesh for the realignment inner loop:
+  - data parallelism over a device mesh for the realignment inner loop:
     reads sharded over the 'data' axis, the RdBG index replicated per
-    chip in HBM, per-shard statistics merged with psum;
+    device, per-shard statistics merged with psum;
   - region sharding for SV calling across hosts (the analog of the
     reference's per-chromosome fc_sv fan-out, panSVR_run.sh:61-91):
     contiguous anchor-contig ranges per worker, VCF parts concatenated.
 
 Multi-host execution uses the same shard_map program under
 jax.distributed initialization; this module only fixes the shardings
-so collectives ride ICI (reads never cross hosts; only scalar stats do).
+(reads never cross hosts; only scalar stats do).
 Validated by tests/test_distributed.py: two OS processes under
 jax.distributed form one 4-device CPU mesh and run the engine's sharded
 front with per-shard parity against a single-device reference.
@@ -44,11 +44,6 @@ def sharded_realign_front(mesh, didx, S0: int, S: int):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    try:
-        shard_map = jax.shard_map
-    except AttributeError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     from ..ops.seeding import merge_expand_device3, seed_reads
 
     def step(words, lens, mask):
@@ -62,16 +57,12 @@ def sharded_realign_front(mesh, didx, S0: int, S: int):
         total = jax.lax.psum(es.valid.sum(), "data")
         return es, stats3, total
 
-    kw = dict(
-        mesh=mesh,
+    return jax.jit(jax.shard_map(
+        step, mesh=mesh,
         in_specs=(P("data"), P("data"), P("data")),
         out_specs=(P("data"), P(None, "data"), P()),
-    )
-    try:
-        sharded = shard_map(step, check_rep=False, **kw)
-    except TypeError:  # jax.shard_map dropped check_rep
-        sharded = shard_map(step, **kw)
-    return jax.jit(sharded)
+        check_vma=False,
+    ))
 
 
 def shard_sv_regions(n_sv: int, n_shards: int, shard_id: int) -> range:

@@ -94,7 +94,10 @@ def read_signal_fastq(path_or_fh):
 
 def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
                  cfg: PipelineConfig | None = None) -> str:
-    """Full run; returns the path of the final VCF."""
+    """Full run; returns the path of the final VCF. Stage walls (with
+    their start/end wall-clock times) and the realignment engine's phase
+    counters go to <workdir>/run_stats.json."""
+    import json
     import sys
     import time as _time
 
@@ -104,11 +107,14 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
 
     _t0 = _time.time()
     _last = [_t0]
+    run_stats: dict = {"stages": []}
 
-    def _stage(msg):
+    def _stage(msg, name):
         now = _time.time()
         print(f"[pansvr +{now - _t0:7.1f}s] {msg} "
               f"({now - _last[0]:.1f}s)", file=sys.stderr, flush=True)
+        run_stats["stages"].append(
+            dict(stage=name, start=_last[0], end=now, wall_s=now - _last[0]))
         _last[0] = now
 
     # ---- S1: anchor reference --------------------------------------------
@@ -118,14 +124,14 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
     write_fasta(anchors_fa, ((c.name, c.seq) for c in contigs), width=70)
     if not contigs:
         raise ValueError("no anchor contigs built from the input VCF")
-    _stage(f"S1 anchor reference: {len(contigs)} contigs")
+    _stage(f"S1 anchor reference: {len(contigs)} contigs", "anchor")
 
     # ---- S2: index -------------------------------------------------------
     idx = build_index(
         [(c.name, c.seq) for c in contigs],
         first_level_bases=cfg.first_level_bases,
     )
-    _stage(f"S2 index: {len(idx.uni_seqf) - 1} unitigs")
+    _stage(f"S2 index: {len(idx.uni_seqf) - 1} unitigs", "index")
 
     # ---- S3: signal extraction ------------------------------------------
     signal_fq = os.path.join(workdir, "signal.fq")
@@ -142,7 +148,7 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
         stats = extract_signal(bam, fh, stats=pre_stats, opts=cfg.signal)
     with open(os.path.join(workdir, "status.txt"), "w") as fh:
         fh.write(stats.status_file_text())
-    _stage("S3 signal extraction")
+    _stage("S3 signal extraction", "signal")
 
     # ---- S4: realignment -------------------------------------------------
     from .io.bam import BamReader
@@ -169,6 +175,7 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
     ori_writer = BamWriter(ori_bam, header)
     B = cfg.batch_size
     n_emitted = 0
+    n_reads = 0
     step = 2 * (B // 2)
 
     def chunk_stream():
@@ -194,6 +201,7 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
                    [parse_signal_comment(p[3])[0] for p in chunk])
 
     for chunk, states in zip(chunks_a, eng.align_stream(batch_stream())):
+        n_reads += len(chunk)
         for k in range(0, len(chunk) - 1, 2):
             st1, st2 = states[k], states[k + 1]
             pr = pe.pair(st1, st2)
@@ -217,19 +225,29 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
                 n_emitted += 1
     writer.close()
     ori_writer.close()
-    _stage(f"S4 realignment: {n_emitted} records emitted")
+    _stage(f"S4 realignment: {n_reads} reads, {n_emitted} records emitted",
+           "fc_aln")
+    run_stats["fc_aln"] = dict(reads=n_reads, records=n_emitted,
+                               batch=B, engine=dict(eng.prof))
+
+    def _write_stats():
+        with open(os.path.join(workdir, "run_stats.json"), "w") as fh:
+            json.dump(run_stats, fh, indent=1)
 
     # ---- S5: SV calling --------------------------------------------------
     out_vcf = os.path.join(workdir, "result.vcf")
     if cfg.sv_shards > 1:
         from .parallel.fanout import run_sv_fanout
 
-        return run_sv_fanout(
+        run_sv_fanout(
             anchors_fa, realigned_bam, genome_fa, out_vcf,
             n_shards=cfg.sv_shards,
             status_file=os.path.join(workdir, "status.txt"),
             edge_len=cfg.anchor.edge_len,
         )
+        _stage("S5 SV calling (fan-out)", "fc_sv")
+        _write_stats()
+        return out_vcf
     sf = SVRefSequence(
         [c.name for c in contigs],
         {c.name: c.seq for c in contigs},
@@ -255,5 +273,6 @@ def run_pipeline(sv_vcf: str, genome_fa: str, bam: str, workdir: str,
     for rec in vcf_records:
         w.write(rec)
     w.close()
-    _stage(f"S5 SV calling: {len(vcf_records)} records")
+    _stage(f"S5 SV calling: {len(vcf_records)} records", "fc_sv")
+    _write_stats()
     return out_vcf

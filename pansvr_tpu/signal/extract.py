@@ -131,7 +131,7 @@ def compute_stats(bam_path: str, genome_size: float = 3.1e9,
     from ..align import native_glue
 
     lib = None if _DISABLE_NATIVE else native_glue.get_lib()
-    scan_ok = lib is not None and hasattr(lib, "glue_bam_scan")
+    scan_ok = lib is not None
     _unpack = _struct.Struct("<Hiiii").unpack_from  # flag,l_seq,mtid,mpos,tlen
 
     def _column_scan(chunk_iter):
@@ -487,11 +487,9 @@ def extract_signal(bam_path: str, out_fq, stats: SignalStats | None = None,
     from ..align import native_glue
 
     lib = native_glue.get_lib()
-    native_ok = (not _DISABLE_NATIVE and lib is not None
-                 and hasattr(lib, "glue_signal_scan"))
-    use_render = (native_ok and not _DISABLE_RENDER
-                  and hasattr(lib, "glue_signal_render"))
-    use_chunks = (use_render and hasattr(lib, "glue_bam_scan"))
+    native_ok = not _DISABLE_NATIVE and lib is not None
+    use_render = native_ok and not _DISABLE_RENDER
+    use_chunks = use_render
     rd0 = None
     rep = None
     if stats is None:
@@ -749,7 +747,7 @@ def _pair_block_native(block, ex: SignalExtractor, out_fq, unpaired) -> bool:
     from ..align import native_glue
 
     lib = native_glue.get_lib()
-    if lib is None or not hasattr(lib, "glue_signal_scan"):
+    if lib is None:
         return False
     if isinstance(block, _BodyBlock):
         bodies = block.bodies
@@ -769,8 +767,6 @@ def _pair_block_native(block, ex: SignalExtractor, out_fq, unpaired) -> bool:
         not_using_filter=ex.opts.not_using_filter,
         lowq_cutoff=ex.opts.lowq_phred_cutoff,
     )
-    if res is None:
-        return False
     cols, mate, verdict, reason = res
 
     for i in np.nonzero(mate < 0)[0]:

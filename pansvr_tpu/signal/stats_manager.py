@@ -281,7 +281,7 @@ class StatsManager:
         would restart the convergence cycle from scratch)."""
         from ..align import native_glue
 
-        if (not native_glue.stats_available()
+        if (not native_glue.available()
                 or os.environ.get("PANSVR_NO_NATIVE_STATS")):
             return False
         lib = native_glue.get_lib()

@@ -10,6 +10,7 @@ deterministic.
 
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -282,6 +283,9 @@ def sim_bam_records(ds: "SimDataset", read_len: int = 150):
         )
     )
     segs = _alt_to_ref_segments(ds.genome, ds.svs)
+    # segments are disjoint and in alt order, so their ends ascend: a
+    # bisect finds the first one that can overlap a read
+    seg_ends = {c: [seg[1] for seg in v] for c, v in segs.items()}
 
     def map_read(chrom, p, L, from_alt):
         """-> (ref_pos, cigar, mapped_len, strand_flip) with soft clips
@@ -292,7 +296,11 @@ def sim_bam_records(ds: "SimDataset", read_len: int = 150):
         if not from_alt:
             return p, [("M", L)], L, False
         best = None
-        for seg in segs[chrom]:
+        cs = segs[chrom]
+        for k in range(bisect.bisect_right(seg_ends[chrom], p), len(cs)):
+            seg = cs[k]
+            if seg[0] >= p + L:
+                break
             a0, a1, r0 = seg[0], seg[1], seg[2]
             rev = len(seg) > 3 and seg[3]
             lo = max(p, a0)
@@ -321,12 +329,13 @@ def sim_bam_records(ds: "SimDataset", read_len: int = 150):
             cig.append(("S", lo - p))
         return rpos, cig, hi - lo, True
 
+    tid_of = {c: i for i, c in enumerate(chroms)}
     records = []
     for rd in ds.reads:
         hap_maps = []
         for (p, seq, rev) in ((rd.pos0_1, rd.seq1, False), (rd.pos0_2, rd.seq2, True)):
             hap_maps.append(map_read(rd.chrom, p, len(seq), rd.from_alt))
-        tid = chroms.index(rd.chrom)
+        tid = tid_of[rd.chrom]
         recs = []
         for k, (p, seq, qual, rev) in enumerate(
             ((rd.pos0_1, rd.seq1, rd.qual1, False),

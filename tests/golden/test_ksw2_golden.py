@@ -1,11 +1,26 @@
 """Fuzz our NumPy extd2 reference against the compiled reference kernel."""
 
+import subprocess
+
 import numpy as np
 import pytest
 
 from pansvr_tpu.ops import ksw2_ref
 
+from . import ksw2_oracle
 from .ksw2_oracle import run_extd2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _oracle_built():
+    """The oracle compiles the reference kernel's source; skip (like the
+    fixtures in conftest.py) where that source is not present."""
+    try:
+        ksw2_oracle.get_lib()
+    except (OSError, subprocess.CalledProcessError):
+        pytest.skip("reference ksw2 source not available to build the "
+                    "oracle (tools/build_reference.sh)")
+
 
 PANSVR_ALN = dict(match=2, mismatch=-12, q=16, e=1, q2=32, e2=0, w=200, zdrop=400)
 PANSVR_SV = dict(match=2, mismatch=-10, q=24, e=2, q2=32, e2=1, w=132, zdrop=132)

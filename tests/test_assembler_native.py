@@ -35,11 +35,6 @@ def _assemble(reads, native: bool, repeat_mode=False):
     return am.assemble()
 
 
-@pytest.mark.skipif(
-    native_glue.get_lib() is None
-    or not hasattr(native_glue.get_lib(), "glue_asm_run"),
-    reason="native glue library not built",
-)
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 @pytest.mark.parametrize("repeat_mode", [False, True])
 def test_native_assembler_matches_python(seed, repeat_mode):

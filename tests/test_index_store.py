@@ -88,7 +88,7 @@ def test_engine_on_mmapped_index(tmp_path):
                       types=("DEL", "INS", "DUP"))
     seqs = [s for r in ds.reads[:16] for s in (r.seq1, r.seq2)]
     oris = [OriResult(unmapped=True) for _ in seqs]
-    cfg = EngineConfig(dp_backend="scan")
+    cfg = EngineConfig()
     sa = AlignEngine(idx, config=cfg).align_batch(seqs, oris)
     sb = AlignEngine(mm, config=cfg).align_batch(seqs, oris)
     for x, y in zip(sa, sb):

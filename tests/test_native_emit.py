@@ -8,11 +8,6 @@ import pytest
 from pansvr_tpu.align import native_glue
 
 
-pytestmark = pytest.mark.skipif(
-    not native_glue.emit_available(),
-    reason="libpansvr_glue with glue_pe_emit not built",
-)
-
 
 def _world():
     from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs

@@ -1,7 +1,7 @@
 """Native engine glue (native/engine_glue.cpp) vs the pure-Python
 collect/replay path: SingleEndState results must be bit-identical.
 
-Skipped when the library is not built (tools/build_native.sh)."""
+The library is built from native/engine_glue.cpp at first use."""
 
 import numpy as np
 import pytest
@@ -12,10 +12,6 @@ from pansvr_tpu.align.host_align import OriResult
 from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
 from pansvr_tpu.index.builder import build_index
 from pansvr_tpu.utils.simulate import DictGenome, make_dataset
-
-pytestmark = pytest.mark.skipif(
-    not native_glue.available(), reason="native glue library not built")
-
 
 def _key(results):
     return [
@@ -39,11 +35,9 @@ def test_native_glue_matches_python_path():
     oris = [OriResult(unmapped=True)] * len(seqs)
     B = 1024
     eng_n = AlignEngine(idx, ori_chrom_names=list(ds.genome),
-                        config=EngineConfig(dp_backend="scan",
-                                            native_glue=True))
+                        config=EngineConfig(native_glue=True))
     eng_p = AlignEngine(idx, ori_chrom_names=list(ds.genome),
-                        config=EngineConfig(dp_backend="scan",
-                                            native_glue=False))
+                        config=EngineConfig(native_glue=False))
     assert eng_n._glue_lib is not None
     st_n = eng_n.align_batch(seqs[:B], oris[:B])
     st_p = eng_p.align_batch(seqs[:B], oris[:B])
@@ -63,10 +57,7 @@ def test_native_extd2_matches_oracle():
     from pansvr_tpu.ops import ksw2_ref
 
     lib = native_glue.get_lib()
-    if lib is None or not hasattr(lib, "glue_extd2"):
-        import pytest
-
-        pytest.skip("native glue not built")
+    assert lib is not None
     rng = np.random.default_rng(11)
     profiles = [
         dict(match=2, mismatch=-12, q=16, e=1, q2=32, e2=0, w=200, zdrop=400),
@@ -98,10 +89,7 @@ def test_native_parse_comments_matches_python():
     and adversarial comment strings (grammar: read_realignment.hpp:392-429)."""
     from pansvr_tpu.pipeline import parse_signal_comment
 
-    if native_glue.parse_comments(["0_1_2_3_4_x_x_x_x_FN"]) is None:
-        import pytest
-
-        pytest.skip("native glue without glue_parse_comments")
+    assert native_glue.parse_comments(["0_1_2_3_4_x_x_x_x_FN"]) is not None
     rng = np.random.default_rng(5)
     comments = []
     for _ in range(200):

@@ -152,8 +152,8 @@ def test_denovo_recovers_hidden_svs(hidden_sv_world):
 
 
 def test_sv_calling_device_dp_matches_inline(pipeline_result):
-    """ContigDpBatcher device path (Pallas, interpret on CPU) must yield
-    the same verdicts/VCF records as the inline scalar-DP path."""
+    """ContigDpBatcher device path (batched scan DP) must yield the same
+    verdicts/VCF records as the inline scalar-DP path."""
     from pansvr_tpu.assembly.sv_call import (
         ContigDpBatcher,
         SVRefSequence,
@@ -177,7 +177,7 @@ def test_sv_calling_device_dp_matches_inline(pipeline_result):
     _, vcf_inline = run_sv_calling(bam, fresh_sf(), opts)
     _, vcf_device = run_sv_calling(
         bam, fresh_sf(), opts,
-        dp=ContigDpBatcher(device=True, interpret=True),
+        dp=ContigDpBatcher(device=True),
     )
     assert len(vcf_inline) == len(vcf_device)
     for a, b in zip(vcf_inline, vcf_device):

@@ -85,9 +85,7 @@ def test_native_scan_matches_python(sim_bam):
     from pansvr_tpu.align import native_glue
     from pansvr_tpu.signal import extract as ext
 
-    if native_glue.get_lib() is None or \
-            not hasattr(native_glue.get_lib(), "glue_signal_scan"):
-        pytest.skip("native glue library not built")
+    assert native_glue.get_lib() is not None
     ds, p = sim_bam
     for opts in (SignalOptions(discard_both_full_match=True),
                  SignalOptions(discard_both_full_match=False,
@@ -177,10 +175,7 @@ def test_native_stats_parity(tmp_path):
     from pansvr_tpu.io.bam import BamHeader, BamWriter
     from pansvr_tpu.signal.stats_manager import StatsManager
 
-    if not native_glue.stats_available():
-        import pytest
-
-        pytest.skip("native glue not built")
+    assert native_glue.available()
 
     clen = 1_000_000
     header = BamHeader(text="@HD\tVN:1.6\n@SQ\tSN:chr1\tLN:1000000\n",

@@ -7,11 +7,6 @@ import pytest
 from pansvr_tpu.align import native_glue
 
 
-@pytest.mark.skipif(
-    native_glue.get_lib() is None
-    or not hasattr(native_glue.get_lib(), "glue_sv_load"),
-    reason="native glue library not built",
-)
 def test_native_sv_loader_matches_python(tmp_path):
     import os
 

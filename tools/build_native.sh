@@ -1,10 +1,6 @@
 #!/bin/bash
-# Build the native runtime components into native/build/.
+# Build the native host libraries into native/build/ (the loaders also
+# build them at first use; see pansvr_tpu/utils/native_build.py).
 set -e
 cd "$(dirname "$0")/.."
-mkdir -p native/build
-g++ -O3 -fPIC -shared -o native/build/libpansvr_bgzf.so \
-    native/bgzf_codec.cpp -lz -lpthread
-g++ -O3 -fPIC -shared -std=c++17 -pthread -o native/build/libpansvr_glue.so \
-    native/engine_glue.cpp
-echo "built native/build/libpansvr_bgzf.so libpansvr_glue.so"
+exec python -m pansvr_tpu.utils.native_build

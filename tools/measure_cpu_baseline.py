@@ -1,12 +1,12 @@
 """Measure the reference CPU panSVR realignment throughput for
 bench.py's vs_baseline ratio — on the SAME signal FASTQ bench.py times.
 
-Uses bench.build_bench_world() (cached under /tmp): genome + BAM +
+Uses bench.build_bench_world() (cached under .bench_world/): genome + BAM +
 anchors + signal.fq produced with the reference driver's flags (-D -U).
 The reference side gets its own deBGA index over the same anchors
 (built by the reference binaries), then `panSVR fc_aln` is timed at
 1/4/8/32 threads, full stage (FASTQ -> BAM) — identical work to what
-bench.py times on the TPU side.
+bench.py times on the GPU side.
 
 NOTE: this host has 4 physical cores, so the "32-thread" rate is the
 4-core saturation rate (32 threads cannot exceed it); we report every

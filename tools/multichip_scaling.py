@@ -50,7 +50,7 @@ idx, didx, codes, words, lens = _build_world(
 seqs = ["".join("ACGT"[c] for c in row) for row in codes]
 oris = [OriResult(unmapped=True)] * len(seqs)
 mesh = Mesh(np.array(jax.devices()[:n]).reshape(n), ("data",))
-cfg = EngineConfig(dp_backend="scan", stream_depth=2)
+cfg = EngineConfig(stream_depth=2)
 eng = AlignEngine(idx, config=cfg, mesh=mesh)
 
 def batches():
